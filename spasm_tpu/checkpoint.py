@@ -3,7 +3,7 @@
 The reference has no mid-computation persistence (SURVEY.md §5.4), but its
 round-structured engine is naturally checkpointable between rounds: the
 full state is (U, qinv, L-triplets, S, p_in).  This module first-classes
-that for preemptible TPUs: `echelonize(..., opts.checkpoint_file=PATH)`
+that for preemptible accelerators: `echelonize(..., opts.checkpoint_file=PATH)`
 writes an atomic snapshot after every round and after every dense-finisher
 block; re-running the same command resumes from the last snapshot when the
 input fingerprint matches.

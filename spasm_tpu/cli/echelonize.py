@@ -22,10 +22,6 @@ def main(argv=None):
                     help="Output the RREF (of A*Q) instead of U")
     ap.add_argument("--low-rank-start-weight", type=int, default=-1)
     args = ap.parse_args(argv)
-    # start the device transfer-channel handshake now; it overlaps with
-    # input parsing + the host-side pivot search (see warm_device_async)
-    from .. import warm_device_async
-    warm_device_async()
     A, _ = load_input(args)
     opts = opts_from_args(args)
     opts.low_rank_start_weight = args.low_rank_start_weight

@@ -29,10 +29,6 @@ def main(argv=None):
     g.add_argument("--output", "-o", metavar="FILE", default=None,
                    help="Write the rank certificate in FILE")
     args = ap.parse_args(argv)
-    # start the device transfer-channel handshake now; it overlaps with
-    # input parsing + the host-side pivot search (see warm_device_async)
-    from .. import warm_device_async
-    warm_device_async()
 
     T, h = load_input_triplet(args, want_hash=True)
     if not args.no_transpose and T.n < T.m:

@@ -23,10 +23,6 @@ def main(argv=None):
     g.add_argument("--output", "-o", metavar="FILE", default=None,
                    help="Write the solution matrix in FILE")
     args = ap.parse_args(argv)
-    # start the device transfer-channel handshake now; it overlaps with
-    # input parsing + the host-side pivot search (see warm_device_async)
-    from .. import warm_device_async
-    warm_device_async()
 
     print("Loading A", file=sys.stderr)
     A, _ = load_input(args)

@@ -1,10 +1,10 @@
 """Device-side (JAX/XLA/Pallas) dense GF(p) linear algebra.
 
 This package replaces the reference's FFLAS-FFPACK bridge
-(/root/reference/src/spasm_ffpack.cpp) with TPU-native kernels:
+(/root/reference/src/spasm_ffpack.cpp) with device kernels in JAX:
 
-  * modp.modp_matmul — exact mod-p matmul by int8 digit decomposition on
-    the MXU (the analog of FFPACK's delayed-reduction BLAS).
+  * modp.modp_matmul — exact mod-p matmul by int8 digit decomposition
+    (the analog of FFPACK's delayed-reduction BLAS).
   * elim.dense_rref / elim.dense_lu — blocked rank-revealing reduced row
     echelonization / PLUQ with column pivoting (the analogs of
     FFPACK::pReducedRowEchelonForm and FFPACK::pPLUQ).

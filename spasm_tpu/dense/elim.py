@@ -1,7 +1,7 @@
 """Blocked rank-revealing dense elimination over GF(p) on device.
 
 Replaces the reference's FFPACK bridge (spasm_ffpack.cpp:22-75,
-FFPACK::pReducedRowEchelonForm / FFPACK::pPLUQ) with a TPU-native design:
+FFPACK::pReducedRowEchelonForm / FFPACK::pPLUQ) with a device design:
 
   * columns are processed left-to-right in panels of NB;
   * a *division-free discovery sweep* (lax.fori_loop over the (n, NB)
@@ -14,7 +14,7 @@ FFPACK::pReducedRowEchelonForm / FFPACK::pPLUQ) with a TPU-native design:
     diagonal pivoting — valid because W's leading minors are exactly the
     pivot minors, all nonsingular — followed by ONE batched Fermat
     inversion of the accumulated diagonal scales;
-  * the whole panel update is then two MXU matmuls:
+  * the whole panel update is then two exact int8-digit matmuls:
         U = W^-1 @ S[R, :]                (the reduced pivot rows)
         S <- S - G @ U,   G = S[:, J] - I_at_pivot_slots
     The -I trick makes pivot rows land exactly on their reduced rows
@@ -33,7 +33,7 @@ FFPACK::pReducedRowEchelonForm / FFPACK::pPLUQ) with a TPU-native design:
 The prime is a runtime scalar (one compiled kernel per shape bucket and
 digit tier, not per prime).  For the d == 2 digit tier (p <= 65279)
 every elementwise step runs in pure int32 + float32-Barrett; int64
-lanes (emulated on TPU) are used only for larger primes.
+lanes are used only for larger primes.
 """
 from __future__ import annotations
 
@@ -49,6 +49,7 @@ from .modp import (dnorm, dnorm64, modinv, matmul_digits, device_field,
 
 _NB = 64          # panel width (local sweep length)
 _NBLK = 512       # column-block width of the composed trailing update
+                  # (both carried over untuned; see ROADMAP A3)
 
 
 def _mulsub(v, P, g, piv, p, small: bool, rounds: int):
@@ -197,8 +198,7 @@ def _unit_upper_inverse_small(V, p, small: bool):
 
 
 def _panel_step(S, j0, is_piv, L, p, weights, d: int, nb: int,
-                rref: bool, small: bool, rounds: int,
-                use_pallas: bool = False):
+                rref: bool, small: bool, rounds: int):
     """One full panel update at column offset j0 (traced scalar).
 
     Returns (S', lrows, lhas, is_piv', L').  In LU mode, L receives the
@@ -206,39 +206,25 @@ def _panel_step(S, j0, is_piv, L, p, weights, d: int, nb: int,
     """
     n, m = S.shape
     P0 = jax.lax.dynamic_slice(S, (0, j0), (n, nb))
-    if use_pallas:
-        from .sweep_pallas import panel_pivots_small_p
-        out = panel_pivots_small_p(
-            P0.T, is_piv.astype(jnp.int32)[None, :],
-            jnp.asarray(p, jnp.int32).reshape(1, 1), nb, rref)
-        lrows, lhas_i, iv2 = out[0][0], out[1][0], out[2][0]
-        piv = _Pivots(lrows, lhas_i == 1, iv2 == 1)
-        Zk = out[3]
-        Vinv_k = out[4] if not rref else None
-    else:
-        piv = _discovery_sweep(P0, is_piv, p, small, rounds)
+    piv = _discovery_sweep(P0, is_piv, p, small, rounds)
     lrows_safe = jnp.where(piv.lhas, piv.lrows, 0)
     rows0 = jnp.where(piv.lhas[:, None], S[lrows_safe, :], 0)   # (nb, m)
-    if not use_pallas:
-        Wfull = jax.lax.dynamic_slice(rows0, (0, j0), (nb, nb))
-        both = jnp.logical_and(piv.lhas[:, None], piv.lhas[None, :])
-        W = jnp.where(both, Wfull, jnp.eye(nb, dtype=jnp.int32))
+    Wfull = jax.lax.dynamic_slice(rows0, (0, j0), (nb, nb))
+    both = jnp.logical_and(piv.lhas[:, None], piv.lhas[None, :])
+    W = jnp.where(both, Wfull, jnp.eye(nb, dtype=jnp.int32))
 
     colmask = (jnp.arange(m) >= j0)[None, :]
     slot = jnp.arange(nb)
     if rref:
-        Z = Zk if use_pallas else _jordan_inverse(W, p, small, rounds)
+        Z = _jordan_inverse(W, p, small, rounds)
         U = matmul_digits(Z, rows0, p, weights, d)               # (nb, m)
         U = jnp.where(jnp.logical_and(colmask, piv.lhas[:, None]), U, 0)
         G = jnp.where(piv.lhas[None, :], P0, 0)
         G = G.at[lrows_safe, slot].add(
             jnp.where(piv.lhas, jnp.int32(-1), 0))
     else:
-        if use_pallas:
-            Zlu, Vinv = Zk, Vinv_k
-        else:
-            Zlu, Vup = _forward_factor(W, p, small, rounds)
-            Vinv = _unit_upper_inverse_small(Vup, p, small)
+        Zlu, Vup = _forward_factor(W, p, small, rounds)
+        Vinv = _unit_upper_inverse_small(Vup, p, small)
         U = matmul_digits(Zlu, rows0, p, weights, d)
         U = jnp.where(jnp.logical_and(colmask, piv.lhas[:, None]), U, 0)
         # multipliers for every not-yet-pivotal row (incl. the panel's
@@ -260,16 +246,15 @@ def _panel_step(S, j0, is_piv, L, p, weights, d: int, nb: int,
 
 @functools.partial(jax.jit,
                    static_argnames=("d", "rref", "nb", "sweep_small",
-                                    "use_pallas", "nblk"))
+                                    "nblk"))
 def _eliminate(S, p, weights, d: int, rref: bool, nb: int = _NB,
-               sweep_small: bool = False, use_pallas: bool = False,
-               nblk: int = 0):
+               sweep_small: bool = False, nblk: int = 0):
     """Full blocked elimination.  S: (n, m) int32 balanced, m % nb == 0.
 
     Two-level blocking: thin nb-panels discover pivots and update only the
     current nblk-wide column block; the trailing matrix then receives ONE
-    composed update per block (contraction dim nblk, so the MXU runs near
-    peak instead of at the nb-wide panels' low arithmetic intensity).  The
+    composed update per block (contraction dim nblk, so the matmul runs at
+    high arithmetic intensity instead of the nb-wide panels' low one).  The
     composed update is exact block Gaussian elimination on the block's
     pre-values: with R/J the block's pivot rows/columns and W = S_pre[R, J]
     (nonsingular leading minors by construction, empty slots masked to
@@ -311,7 +296,7 @@ def _eliminate(S, p, weights, d: int, rref: bool, nb: int = _NB,
             jl = q * nb
             B, lrows, lhas, is_piv, Lb = _panel_step(
                 B, jl, is_piv, Lb, p, weights, d, nb, rref, small,
-                rounds, use_pallas)
+                rounds)
             lrows_a = jax.lax.dynamic_update_slice(lrows_a, lrows, (jl,))
             lhas_a = jax.lax.dynamic_update_slice(lhas_a, lhas, (jl,))
             return B, is_piv, lrows_a, lhas_a, Lb
@@ -387,23 +372,16 @@ def _pad(S: np.ndarray, nb: int, rows_quantum: int = 32) -> np.ndarray:
     return out
 
 
-def _use_pallas(p: int, d: int) -> bool:
-    from .sweep_pallas import PALLAS_MAX_PRIME, pallas_available
-    return d == 2 and p <= PALLAS_MAX_PRIME and pallas_available()
-
-
 def _run(S: np.ndarray, p: int, rref: bool, nb: int):
     from ..parallel.context import shard_cols
     F = device_field(p)
-    pall = _use_pallas(p, F.ndigits)
-    # Mosaic wants the transposed panel's lane dimension 128-aligned
-    Sp = _pad(np.ascontiguousarray(S, np.int32), nb,
-              rows_quantum=128 if pall else 32)
+    Sp = _pad(np.ascontiguousarray(S, np.int32), nb)
     # active mesh: column-sharded right-looking elimination (panel sweep
-    # where the panel lives, trailing MXU updates local per column shard)
+    # where the panel lives, trailing matmul updates local per column
+    # shard)
     return _eliminate(shard_cols(jnp.asarray(Sp)), jnp.int64(p),
                       jnp.asarray(F.weights), F.ndigits, rref, nb,
-                      p <= (1 << 23), pall)
+                      p <= (1 << 23))
 
 
 def dense_rref_device(Xd, p: int, nb: int = _NB):
@@ -416,15 +394,14 @@ def dense_rref_device(Xd, p: int, nb: int = _NB):
     """
     from ..parallel.context import shard_cols
     F = device_field(p)
-    pall = _use_pallas(p, F.ndigits)
     n, m = Xd.shape
     mp = _size_bucket(max(m, 1), nb)
-    np_ = _size_bucket(max(n, 1), 128 if pall else 32)
+    np_ = _size_bucket(max(n, 1), 32)
     if (np_, mp) != (n, m):
         Xd = jnp.pad(Xd, ((0, np_ - n), (0, mp - m)))
     Sf, pivrow_of_col, _, _ = _eliminate(
         shard_cols(Xd), jnp.int64(p), jnp.asarray(F.weights), F.ndigits,
-        True, nb, p <= (1 << 23), pall)
+        True, nb, p <= (1 << 23))
     pivrow = np.asarray(pivrow_of_col)[:m]          # small: m int32
     pivcols = np.nonzero(pivrow >= 0)[0]
     rows = jnp.asarray(pivrow[pivcols], jnp.int32)
@@ -450,16 +427,15 @@ def dense_lu_device(Xd, p: int, nb: int = _NB):
     """
     from ..parallel.context import shard_cols
     F = device_field(p)
-    pall = _use_pallas(p, F.ndigits)
     n, m = Xd.shape
     mp = _size_bucket(max(m, 1), nb)
-    np_ = _size_bucket(max(n, 1), 128 if pall else 32)
+    np_ = _size_bucket(max(n, 1), 32)
     if (np_, mp) != (n, m):
         Xd = jnp.pad(Xd, ((0, np_ - n), (0, mp - m)))
     Sf, pivrow_of_col, _, Lslots = _eliminate(
         shard_cols(Xd.astype(jnp.int32)), jnp.int64(p),
         jnp.asarray(F.weights), F.ndigits, False, nb,
-        p <= (1 << 23), pall)
+        p <= (1 << 23))
     pivrow = np.asarray(pivrow_of_col)[:m]
     pivcols = np.nonzero(pivrow >= 0)[0].astype(np.int64)
     rank = pivcols.size

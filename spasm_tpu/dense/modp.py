@@ -1,15 +1,14 @@
 """Exact GF(p) arithmetic on device (int32 balanced representation).
 
 The workhorse is `modp_matmul`: an exact modular matrix product built from
-int8 x int8 -> int32 MXU matmuls.  Balanced int32 values are decomposed
+int8 x int8 -> int32 matmuls.  Balanced int32 values are decomposed
 into D base-256 digits (each in [-128, 127], so any digit product is
 <= 16384 and tens of thousands of them accumulate exactly in int32).  The
-D*D digit products are computed as one batched MXU einsum and recombined
+D*D digit products are computed as separate int8 dot_generals and recombined
 with per-digit-weight modular reduction (cheap O(n*m) work vs the
 O(n*m*k) matmuls).  For the D=2 tier (p <= 65279, which includes the
 reference's default modulus 42013) the recombination runs entirely in
-int32 + float32-reciprocal Barrett — no int64 lanes at all, which matters
-on TPU where int64 is emulated.
+int32 + float32-reciprocal Barrett — no int64 lanes at all.
 
 The prime is a *runtime* scalar: only the digit count D (and shapes) are
 compile-time constants, so one compiled kernel serves every prime of a
@@ -75,11 +74,22 @@ def device_field(p: int) -> DeviceField:
     return DeviceField(p, d, w)
 
 
+def storage_dtype(p: int):
+    """Element type that holds every balanced residue mod p.
+
+    |x| <= p // 2 fits int16 iff p <= 65535; larger primes need int32.
+    The one owner of this choice: device buffers of residues (reduced
+    basis, finisher basis, dense blocks) and the finisher's memory
+    budget all ask here.
+    """
+    return jnp.int16 if p <= 65535 else jnp.int32
+
+
 def dnorm64(x, p, rounds: int = 2):
     """Balanced representative of x mod p, staying in int64.
 
-    Exact multiply-based reduction — **no integer division**, which on TPU
-    lowers to enormous code (slow to compile *and* run).  `rounds` passes
+    Exact multiply-based reduction — **no integer division**, which
+    lowers to long instruction sequences on accelerators.  `rounds` passes
     of float32-reciprocal Barrett (error recurrence
     |r'| <= |r|*2^-23 + 0.51p) followed by two conditional corrections.
 
@@ -179,7 +189,7 @@ def _digits(x, d: int, p=None):
 def matmul_digits_i8B(A, B8, p, weights, d: int):
     """Exact (A @ B8) mod p where B8 is int8 (|values| <= 127 — a single
     base-256 digit).  Only A is digit-decomposed, so the product needs d
-    MXU dot_generals instead of d*d — structural pivot bases with +-1
+    dot_generals instead of d*d — structural pivot bases with +-1
     entries (e.g. boundary-map matrices) take this path."""
     n, k = A.shape
     kc = _k_chunk(d)
@@ -220,7 +230,7 @@ def matmul_digits(A, B, p, weights, d: int):
     weights (2d-1,) int64; d static.  B may be int8 (single digit) —
     dispatches to the d-dot variant instead of d*d.
 
-    The d*d int8 digit products are separate MXU dot_generals accumulated
+    The d*d int8 digit products are separate dot_generals accumulated
     per anti-diagonal: a batched einsum over (d, d) would materialize a
     (d, d, n, m) int32 intermediate — d^2 * 4 bytes per output element —
     which is memory-bound and OOMs at large n*m (measured 30x slower at

@@ -47,7 +47,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from .modp import (device_field, dnorm, dnorm64, matmul_digits, _digits,
-                   _reduce31)
+                   _reduce31, storage_dtype)
 from .elim import _submod, _size_bucket
 
 
@@ -55,7 +55,7 @@ def _ref_combine(V, G, p, weights, d: int, small_acc: bool = False):
     """Exact sum_k V[:, k] * G[:, k, :] mod p, balanced int32 out.
 
     V (S, K) int32 balanced, G (S, K, M) balanced (int16/int32).
-    Computed as batched int8 digit contractions on the MXU
+    Computed as batched int8 digit contractions
     (dot_general, batch dim S, contraction K): per-anti-diagonal
     partial sums are exact in int32 for K * 128^2 < 2^31, recombined
     with weighted Barrett passes exactly like matmul_digits.  An int64
@@ -208,7 +208,8 @@ class ReducedBasis:
     # dead-padded chunks/slots are inert, and the read waste of
     # rounding a level up to a tier is bounded by the tier ratio
     _TIERS = ((64, 64), (512, 16), (4096, 4), (8192, 2))
-    # element budget for one (Bc, K, M) reference gather
+    # element budget for one (Bc, K, M) reference gather (tiers and
+    # budget carried over untuned; see ROADMAP A3)
     _GATHER_BUDGET = 1 << 28
 
     def __init__(self, m: int, prime: int, qfree: np.ndarray,
@@ -218,12 +219,12 @@ class ReducedBasis:
         self.F = device_field(prime)
         self.small = self.F.ndigits == 2
         self.nq = int(qfree.size)
-        # width rounds to a 2048 multiple: the Mosaic row-sweep kernel
-        # tiles columns at 2048, and the pad is dead-column zeros
+        # width rounds to a 2048 multiple (bounds the compiled width
+        # variants); the pad is dead-column zeros
         self.M = max(-(-(self.nq + 1) // 2048) * 2048, 2048)
         self.npad = _size_bucket(npiv + 1, 64)
         self.npiv = npiv
-        self.dtype = jnp.int16 if prime <= 65535 else jnp.int32
+        self.dtype = storage_dtype(prime)
         self.p64 = jnp.int64(prime)
         self.w = jnp.asarray(self.F.weights)
         # global column -> compact slot / R row (index m = dead)
@@ -257,14 +258,7 @@ class ReducedBasis:
         pcr = np.full(self.npad, self.m, np.int64)
         pcr[:npiv] = pivcols
         self._pivcol_of_row = pcr
-        from ..parallel.context import shard_cols, current_mesh
-        if npiv and self.small and current_mesh() is None:
-            from .subst_pallas import SUBST_MAX_PRIME, subst_available
-            if self.prime <= SUBST_MAX_PRIME and subst_available():
-                self.R = self._build_subst(offs, cols, vals,
-                                           np.asarray(pivcols, np.int64),
-                                           np.asarray(groups), pivmap)
-                return
+        from ..parallel.context import shard_cols
         # SP axis (SURVEY §2.4): under an active mesh the reduced basis
         # shards its WIDTH over 'cols' — every per-row gather stays
         # local to a column shard, and the free-column budget scales
@@ -370,42 +364,6 @@ class ReducedBasis:
                 tb0 = _t.time()
             i = j
         self.R = R
-
-    def _build_subst(self, offs, cols, vals, pivcols, groups, pivmap_np):
-        """Phase A via the Mosaic substitution-sweep kernel
-        (dense/subst_pallas.py): scatter-initialize R with every row's
-        free entries, then stream the reference eliminations row-by-row
-        in topological order — no per-level scan steps, no tail
-        doubling.  d == 2 tier, single-device only."""
-        from .subst_pallas import plan_schedule, run_schedule
-        npiv = self.npiv
-        npad = self.npad
-        lens = np.diff(offs).astype(np.int64)
-        order = np.argsort(-groups, kind="stable")
-        src = _flat_gather(offs[order].astype(np.int64), lens[order])
-        rr = np.repeat(np.arange(npiv), lens[order])   # ordered row idx
-        cc = np.asarray(cols)[src].astype(np.int64)
-        vv = np.asarray(vals)[src].astype(np.int32)
-        own = cc == pivcols[order][rr]
-        refg = pivmap_np[cc].astype(np.int64)          # R row / npad-1
-        is_ref = (refg != npad - 1) & ~own
-        is_free = ~is_ref & ~own
-        # CSR rows have unique columns, so the init is a plain .set
-        R = jnp.zeros((npad, self.M), self.dtype)
-        if np.any(is_free):
-            fr = order[rr[is_free]]
-            fc = self._colmap_np[cc[is_free]].astype(np.int64)
-            R = _scatter_set(R, jnp.asarray(fr), jnp.asarray(fc),
-                             jnp.asarray(vv[is_free].astype(R.dtype)))
-        ref_cnt = np.bincount(rr[is_ref], minlength=npiv)
-        ref_ptr = np.zeros(npiv + 1, np.int64)
-        np.cumsum(ref_cnt, out=ref_ptr[1:])
-        plan = plan_schedule(order, refg[is_ref], ref_ptr, vv[is_ref],
-                             npad)
-        if plan is not None:
-            rowid, refs, coef, KR = plan
-            R = run_schedule(R, rowid, refs, coef, KR, self.prime)
-        return R
 
     # tail-doubling budgets: max rows, max chunk tier, fill/round caps
     _TAIL_CAP = 65536
@@ -607,9 +565,6 @@ class ReducedBasis:
         """True when K balanced products fit one int32 accumulator."""
         return K * (self.prime // 2) ** 2 < (1 << 31)
 
-    def hbm_bytes(self) -> int:
-        return self.npad * self.M * (2 if self.dtype == jnp.int16 else 4)
-
 
 def _host_spmm_modp(offs1, cols1, vals1, offs2, cols2, vals2, n: int,
                     p: int):
@@ -677,11 +632,6 @@ def _tail_combine_chunk(Xold, r0, refs, vals, p, weights, Bc: int,
 @functools.partial(jax.jit, donate_argnums=(0,))
 def _tail_scatter_into_R(R, tids, X):
     return R.at[tids].set(X.astype(R.dtype))
-
-
-@functools.partial(jax.jit, donate_argnums=(0,))
-def _scatter_set(R, rows, cols, vals):
-    return R.at[rows, cols].set(vals)
 
 
 def _k_bucket(k: int) -> int:

@@ -3,8 +3,8 @@ proportional to the number of ROWS, not columns.
 
 The classic column sweep (dense/elim.py) runs one sequential step per
 *column* — m steps.  The engine's finisher blocks are short and wide
-(B rows over q >> B free columns), where m steps at the TPU's ~10 us
-per sequential loop iteration dominate everything.  This kernel instead
+(B rows over q >> B free columns), where m steps at the device's
+per-iteration loop latency dominate everything.  This kernel instead
 sweeps over rows (B steps): each step finds the leftmost nonzero of the
 current row (one VPU reduction), then applies a division-free Jordan
 cross-multiplication update to every other row of the panel.
@@ -12,7 +12,7 @@ cross-multiplication update to every other row of the panel.
 Blocked structure (nb-row panels) maintains the invariant that all
 processed rows form a *fully reduced* (RREF) unit-pivot basis:
   * panel start: eliminate the panel against every prior pivot row with
-    ONE masked MXU matmul — exact in one shot because priors are RREF;
+    ONE masked matmul — exact in one shot because priors are RREF;
   * within the panel: nb sequential division-free Jordan steps
         P <- v_k * P - P[:, j_k] (x) u_k
     (zero pattern preserved, so pivot choices match classical row
@@ -41,325 +41,10 @@ from .modp import matmul_digits, modinv, dnorm64
 from .elim import _mulsub, _submod, _scale_rows
 
 
-# ---------------------------------------------------------------------------
-# Mosaic row-sweep kernel (small primes): the nb sequential Jordan steps
-# of one panel run inside ONE Pallas program with the whole (nb, M)
-# panel resident in VMEM.  The XLA fori_loop version pays ~100 us of
-# latency per step (argmax + dynamic row read + outer-product update as
-# separate HBM-bound ops); in VMEM the per-step cost is pure VPU work.
-
-
-_SWEEP_TW = 2048      # column tile of the in-kernel panel update
-
-
-def _row_sweep_kernel(p_ref, P_ref, P_out, piv_out, *, nb: int,
-                      r1: bool = False):
-    """Column-tiled so per-step temporaries stay ~nb x TW: the full-panel
-    formulation's (v*P - g*u) temps tripled scoped VMEM and OOMed at
-    (128, 22016) int32."""
-    from .sweep_pallas import _reduce31 as red31
-    p = p_ref[0, 0]
-    invp = jnp.float32(1.0) / p.astype(jnp.float32)
-    M = P_ref.shape[1]
-    TW = _SWEEP_TW
-    T = M // TW
-    lane_m = jax.lax.broadcasted_iota(jnp.int32, (1, M), 1)
-    lane_tw = jax.lax.broadcasted_iota(jnp.int32, (1, TW), 1)
-    sub_nb = jax.lax.broadcasted_iota(jnp.int32, (nb, 1), 0)
-    slot_iota = jax.lax.broadcasted_iota(jnp.int32, (1, nb), 1)
-
-    P_out[:, :] = P_ref[:, :]
-    piv_out[:, :] = jnp.full((1, nb), -1, jnp.int32)
-
-    def step(k, _):
-        u = P_out[pl.ds(k, 1), :].astype(jnp.int32)      # (1, M) value
-        nz = u != 0
-        # one lane-min finds the leftmost nonzero; j == M means none
-        # (cross-lane reductions dominate the step cost — keep them few)
-        j = jnp.min(jnp.where(nz, lane_m, jnp.int32(M)),
-                    axis=1, keepdims=True)               # (1, 1)
-        hasb = j < jnp.int32(M)
-        j = jnp.where(hasb, j, jnp.int32(0))
-        # pivot column extraction from the tile containing j (TW is a
-        # power of two; a traced // would lower through an int64-using
-        # helper that Mosaic cannot compile under jax_enable_x64).
-        # graw[i] = P[i, j]; v = u[j] comes out of the same extraction
-        # via a cheap sublane reduction instead of a second lane sweep.
-        jt = pl.multiple_of(j[0, 0] & jnp.int32(~(TW - 1)), TW)
-        tile_j = P_out[:, pl.ds(jt, TW)].astype(jnp.int32)
-        at_j_t = lane_tw == (j[0, 0] - jt)
-        graw = jnp.sum(jnp.where(at_j_t, tile_j, jnp.int32(0)), axis=1,
-                       keepdims=True, dtype=jnp.int32)   # (nb, 1)
-        v = jnp.sum(jnp.where(sub_nb == k, graw, jnp.int32(0)), axis=0,
-                    keepdims=True, dtype=jnp.int32)      # (1, 1)
-        v = jnp.where(hasb, v, jnp.int32(1))
-        g = jnp.where(jnp.logical_and(sub_nb != k, hasb), graw,
-                      jnp.int32(0))
-
-        rounds = 1 if r1 else 2
-        for t in range(T):                   # static unroll: no loop
-            c0 = t * TW                      # bookkeeping per tile
-            tl = P_out[:, pl.ds(c0, TW)].astype(jnp.int32)
-            # row k's tile re-read from the ref (read-before-write in
-            # this step, so it still holds the pre-update value); a
-            # value-level dynamic_slice of `u` is not lowerable
-            ut = P_out[pl.ds(k, 1), pl.ds(c0, TW)].astype(jnp.int32)
-            P_out[:, pl.ds(c0, TW)] = red31(
-                v * tl - g * ut, p, invp, rounds).astype(P_out.dtype)
-
-        sel = slot_iota == k
-        pj = jnp.where(hasb, j, jnp.int32(-1))
-        piv_out[:, :] = jnp.where(sel, pj, piv_out[:, :])
-        return jnp.int32(0)
-
-    jax.lax.fori_loop(jnp.int32(0), jnp.int32(nb), step, jnp.int32(0))
-
-
-try:                                     # pallas imports (TPU builds)
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    _HAVE_PL = True
-except Exception:                        # pragma: no cover
-    _HAVE_PL = False
-
-
-def _row_sweep_kernel2(p_ref, P_ref, P_out, piv_out, aug, pst, *,
-                       nb: int, r1: bool):
-    """Augmented-tile row sweep: per-TILE passes confine the sequential
-    Jordan steps to an (nb, TW + nb) window — the per-step update cost
-    of the v1 kernel scaled with the FULL width M (measured VPU-bound at
-    ~27 us/step at M = 22528), here it is ~TW/M of that — and each
-    pass's accumulated transform Z is composed into the other tiles with
-    int8 digit matmuls on the MXU.
-
-    Pivot choice differs from v1 (leftmost within the lowest non-empty
-    tile at the row's step, not the global leftmost): any unit-pivot
-    echelon basis is valid downstream (qinv carries the columns), same
-    freedom the reference exercises by reducing A*Q (spasm_rref.c:10-20).
-
-    pst scratch (nb, 128) carries per-row state: col 0 = pivoted flag,
-    col 1 = absolute pivot column.
-    """
-    from .sweep_pallas import _reduce31 as red31
-    p = p_ref[0, 0]
-    invp = jnp.float32(1.0) / p.astype(jnp.float32)
-    M = P_ref.shape[1]
-    TW = _SWEEP_TW
-    T = M // TW
-    W = TW + 128                             # aug width (lane-aligned)
-    rounds = 1 if r1 else 2
-    lane_w = jax.lax.broadcasted_iota(jnp.int32, (1, W), 1)
-    lane_wn = jax.lax.broadcasted_iota(jnp.int32, (nb, W), 1)
-    sub_wn = jax.lax.broadcasted_iota(jnp.int32, (nb, W), 0)
-    sub_nb1 = jax.lax.broadcasted_iota(jnp.int32, (nb, 1), 0)
-    lane_128 = jax.lax.broadcasted_iota(jnp.int32, (nb, 128), 1)
-    lane_nbnb = jax.lax.broadcasted_iota(jnp.int32, (nb, nb), 1)
-    sub_nbnb = jax.lax.broadcasted_iota(jnp.int32, (nb, nb), 0)
-
-    P_out[:, :] = P_ref[:, :]
-    pst[:, :] = jnp.zeros((nb, 128), jnp.int32)
-    # digit weights 256^s mod p, balanced (w2 = 65536 mod p)
-    w1 = red31(jnp.full((1, 1), 256, jnp.int32), p, invp)[0, 0]
-    w2 = red31(w1 * w1, p, invp)
-
-    # pass/compose loops are fori_loops with traced tile offsets: the
-    # unrolled form traced ~10x more ops, and the TRACE/LOWER time of
-    # the enclosing jit (not XLA compile, which is cached) dominated
-    # cold start at ~30 s per variant
-    def tile_pass(t, _):
-        c0 = pl.multiple_of(t * jnp.int32(TW), TW)
-        tile0 = P_out[:, pl.ds(c0, TW)].astype(jnp.int32)
-        pstv = pst[:, :]
-        unp = (pstv[:, :1] == 0).astype(jnp.int32)         # (nb, 1)
-        cand = jnp.max(unp * jnp.max(
-            jnp.where(tile0 != 0, jnp.int32(1), jnp.int32(0)),
-            axis=1, keepdims=True), axis=0, keepdims=True)  # (1, 1)
-
-        @pl.when(cand[0, 0] > 0)
-        def _pass():
-            # aug = [tile | I_nb | 0pad]
-            idcols = jnp.where(lane_wn - TW == sub_wn, jnp.int32(1),
-                               jnp.int32(0))
-            aug[:, :] = jnp.where(lane_wn < TW, jnp.int32(0), idcols)
-            aug[:, pl.ds(0, TW)] = tile0
-
-            def step(k, _):
-                prow = pst[pl.ds(k, 1), :]
-                flg = jnp.sum(jnp.where(lane_128[:1] == 0, prow,
-                                        jnp.int32(0)),
-                              axis=1, keepdims=True, dtype=jnp.int32)
-
-                @pl.when(flg[0, 0] == 0)
-                def _():
-                    u = aug[pl.ds(k, 1), :]              # (1, W)
-                    nz = jnp.logical_and(u != 0, lane_w < jnp.int32(TW))
-                    j = jnp.min(jnp.where(nz, lane_w, jnp.int32(W)),
-                                axis=1, keepdims=True)
-                    hasb = j[0, 0] < jnp.int32(TW)
-
-                    @pl.when(hasb)
-                    def _():
-                        jj = j[0, 0]
-                        at_j = lane_wn == jj
-                        graw = jnp.sum(jnp.where(at_j,
-                                                 aug[:, :],
-                                                 jnp.int32(0)),
-                                       axis=1, keepdims=True,
-                                       dtype=jnp.int32)        # (nb,1)
-                        v = jnp.sum(jnp.where(sub_nb1 == k, graw,
-                                              jnp.int32(0)),
-                                    axis=0, keepdims=True,
-                                    dtype=jnp.int32)           # (1,1)
-                        g = jnp.where(sub_nb1 != k, graw, jnp.int32(0))
-                        aug[:, :] = red31(v * aug[:, :] - g * u, p,
-                                          invp, rounds)
-                        newrow = jnp.where(
-                            lane_128[:1] == 0, jnp.int32(1),
-                            jnp.where(lane_128[:1] == 1,
-                                      c0 + jj, jnp.int32(0)))
-                        pst[pl.ds(k, 1), :] = newrow
-                return jnp.int32(0)
-
-            jax.lax.fori_loop(jnp.int32(0), jnp.int32(nb), step,
-                              jnp.int32(0))
-            P_out[:, pl.ds(c0, TW)] = aug[:, pl.ds(0, TW)] \
-                .astype(P_out.dtype)
-            # compose Z into every other tile via int8 digit dots (MXU)
-            Z = aug[:, pl.ds(TW, 128)][:, :nb]           # (nb, nb)
-            z0 = ((Z + 128) & 255) - 128
-            z1 = (Z - z0) >> 8
-            z0_8 = z0.astype(jnp.int8)
-            z1_8 = z1.astype(jnp.int8)
-
-            def compose(tt, _):
-                @pl.when(tt != t)
-                def _():
-                    ct = pl.multiple_of(tt * jnp.int32(TW), TW)
-                    tl = P_out[:, pl.ds(ct, TW)].astype(jnp.int32)
-                    x0 = ((tl + 128) & 255) - 128
-                    x1 = (tl - x0) >> 8
-                    x0_8 = x0.astype(jnp.int8)
-                    x1_8 = x1.astype(jnp.int8)
-                    d00 = jnp.dot(z0_8, x0_8,
-                                  preferred_element_type=jnp.int32)
-                    d01 = jnp.dot(z0_8, x1_8,
-                                  preferred_element_type=jnp.int32)
-                    d10 = jnp.dot(z1_8, x0_8,
-                                  preferred_element_type=jnp.int32)
-                    d11 = jnp.dot(z1_8, x1_8,
-                                  preferred_element_type=jnp.int32)
-                    b0 = red31(d00, p, invp)
-                    b1 = red31(d01 + d10, p, invp)
-                    b2 = red31(d11, p, invp)
-                    res = red31(b0 + w1 * b1 + w2 * b2, p, invp)
-                    P_out[:, pl.ds(ct, TW)] = res.astype(P_out.dtype)
-                return jnp.int32(0)
-
-            jax.lax.fori_loop(jnp.int32(0), jnp.int32(T), compose,
-                              jnp.int32(0))
-        return jnp.int32(0)
-
-    jax.lax.fori_loop(jnp.int32(0), jnp.int32(T), tile_pass,
-                      jnp.int32(0))
-
-    # piv_out[0, k] = pivabs if pivoted else -1 (transpose via diag)
-    pfin = pst[:, :]
-    flags = jnp.sum(jnp.where(lane_128 == 0, pfin, jnp.int32(0)),
-                    axis=1, keepdims=True, dtype=jnp.int32)
-    absj = jnp.sum(jnp.where(lane_128 == 1, pfin, jnp.int32(0)),
-                   axis=1, keepdims=True, dtype=jnp.int32)
-    vals = jnp.where(flags == 1, absj, jnp.int32(-1))
-    piv_out[:, :] = jnp.sum(
-        jnp.where(lane_nbnb == sub_nbnb,
-                  jnp.broadcast_to(vals, (nb, nb)), jnp.int32(0)),
-        axis=0, keepdims=True, dtype=jnp.int32)
-
-
-def _row_sweep_pallas(P, p32, nb: int, r1: bool = False):
-    """P (nb, M) int32 -> (P', pivcol (1, nb) int32).
-
-    The panel is aliased in/out (one VMEM buffer — (128, 22016) int32
-    is 11.3 MB, two copies would exceed VMEM).  int16 VMEM I/O is
-    rejected by this Mosaic build, so callers cast to int32 first.
-    """
-    kernel = functools.partial(_row_sweep_kernel, nb=nb, r1=r1)
-    return pl.pallas_call(
-        kernel,
-        out_shape=(jax.ShapeDtypeStruct(P.shape, jnp.int32),
-                   jax.ShapeDtypeStruct((1, nb), jnp.int32)),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 2,
-        out_specs=(pl.BlockSpec(memory_space=pltpu.VMEM),
-                   pl.BlockSpec(memory_space=pltpu.VMEM)),
-        input_output_aliases={1: 0},
-    )(p32.reshape(1, 1), P)
-
-
-def _row_sweep_pallas2(P, p32, nb: int, r1: bool = False):
-    """Augmented-tile variant (see _row_sweep_kernel2): same contract
-    as _row_sweep_pallas, different (equally valid) pivot columns."""
-    kernel = functools.partial(_row_sweep_kernel2, nb=nb, r1=r1)
-    W = _SWEEP_TW + 128
-    return pl.pallas_call(
-        kernel,
-        out_shape=(jax.ShapeDtypeStruct(P.shape, jnp.int32),
-                   jax.ShapeDtypeStruct((1, nb), jnp.int32)),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 2,
-        out_specs=(pl.BlockSpec(memory_space=pltpu.VMEM),
-                   pl.BlockSpec(memory_space=pltpu.VMEM)),
-        scratch_shapes=[pltpu.VMEM((nb, W), jnp.int32),
-                        pltpu.VMEM((nb, 128), jnp.int32)],
-        input_output_aliases={1: 0},
-    )(p32.reshape(1, 1), P)
-
-
-_SWEEP2_OK = None
-
-
-def _sweep2_available() -> bool:
-    global _SWEEP2_OK
-    if _SWEEP2_OK is None:
-        try:
-            if jax.default_backend() != "tpu" or not _HAVE_PL:
-                _SWEEP2_OK = False
-            else:
-                P = jnp.zeros((16, 2 * _SWEEP_TW), jnp.int32)
-                out = _row_sweep_pallas2(P, jnp.full((1, 1), 42013,
-                                                     jnp.int32), 16)
-                jax.block_until_ready(out)
-                _SWEEP2_OK = True
-        except Exception:                # pragma: no cover
-            _SWEEP2_OK = False
-    return _SWEEP2_OK
-
-
-_SWEEP_OK = None
-
-
-def _sweep_pallas_available(dtype) -> bool:
-    global _SWEEP_OK
-    if _SWEEP_OK is None:
-        try:
-            if jax.default_backend() != "tpu" or not _HAVE_PL:
-                _SWEEP_OK = False
-            else:
-                P = jnp.zeros((16, _SWEEP_TW), jnp.int32)
-                out = _row_sweep_pallas(P, jnp.full((1, 1), 42013,
-                                                    jnp.int32), 16)
-                jax.block_until_ready(out)
-                _SWEEP_OK = True
-        except Exception:                # pragma: no cover
-            _SWEEP_OK = False
-    return _SWEEP_OK
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("d", "nb", "sweep_small",
-                                    "use_pallas", "sweep_r1",
-                                    "use_pallas2"),
+@functools.partial(jax.jit, static_argnames=("d", "nb", "sweep_small"),
                    donate_argnums=(0,))
 def _rref_rows(X, p, weights, d: int, nb: int = 64,
-               sweep_small: bool = False, use_pallas: bool = False,
-               sweep_r1: bool = False, use_pallas2: bool = False):
+               sweep_small: bool = False):
     """Row-sweep RREF of X (B, M) int32 balanced, B % nb == 0, last
     column dead (all zero).  Returns (X', pivcol):
 
@@ -384,66 +69,21 @@ def _rref_rows(X, p, weights, d: int, nb: int = 64,
         # this panel already has exact zeros on all prior pivot columns.
         P = jax.lax.dynamic_slice(X, (q0, 0), (nb, M))
 
-        if use_pallas:
-            # sub-panels of 64 rows sweep inside ONE Mosaic program each
-            # (the whole sub-panel resident in VMEM; 64 is the largest
-            # row count whose value+buffer fit the 16 MB scoped VMEM);
-            # after each sweep the sub-panel is normalized (batched
-            # Fermat) and eliminated from the REST of the panel with one
-            # thin matmul, so the outer panel keeps nb=128 and the
-            # prior-elimination matmuls keep full-height MXU operands.
-            SB = 64
-            p32 = p.astype(jnp.int32).reshape(1, 1)
-            iota_sub = jnp.arange(SB)
-            sweep = _row_sweep_pallas2 if use_pallas2 \
-                else _row_sweep_pallas
+        def step(k, c):
+            P, pivl = c
+            u = P[k]
+            nz = u != 0
+            has = jnp.any(nz)
+            j = jnp.argmax(nz)
+            v = jnp.where(has, u[j], 1)
+            g = jnp.where((iota_nb != k) & has, P[:, j], 0)
+            P = _mulsub(v, P, g[:, None], u[None, :], p, small,
+                        rounds).astype(X.dtype)
+            pivl = pivl.at[k].set(jnp.where(has, j, -1).astype(jnp.int32))
+            return P, pivl
 
-            def subpanel(s, carry):
-                P, pivl = carry
-                off = s * SB
-                Ps = jax.lax.dynamic_slice(P, (off, 0), (SB, M))
-                Ps, pr = sweep(Ps.astype(jnp.int32), p32, SB,
-                               r1=sweep_r1)
-                pr = pr[0]
-                # normalize to unit pivots (canonical rows)
-                pvs = Ps[iota_sub, jnp.where(pr >= 0, pr, M - 1)]
-                inv = dnorm64(modinv(jnp.where(pr >= 0, pvs, 1), p), p)
-                Ns = _scale_rows(inv.astype(jnp.int32), Ps, p, small,
-                                 rounds).astype(X.dtype)
-                # eliminate the sub-panel's pivots from every other row
-                prs = jnp.where(pr >= 0, pr, M - 1)
-                C = P[:, prs]                         # (nb, SB)
-                insub = (iota_nb >= off) & (iota_nb < off + SB)
-                C = jnp.where((~insub[:, None]) & (pr >= 0)[None, :],
-                              C, 0)
-                delta = matmul_digits(C.astype(jnp.int32),
-                                      Ns.astype(jnp.int32), p, weights,
-                                      d)
-                P = _submod(P, delta, p, small).astype(X.dtype)
-                P = jax.lax.dynamic_update_slice(P, Ns, (off, 0))
-                pivl = jax.lax.dynamic_update_slice(pivl, pr, (off,))
-                return P, pivl
-
-            P, pivl = jax.lax.fori_loop(
-                0, nb // SB, subpanel,
-                (P, jnp.full((nb,), -1, jnp.int32)))
-        else:
-            def step(k, c):
-                P, pivl = c
-                u = P[k]
-                nz = u != 0
-                has = jnp.any(nz)
-                j = jnp.argmax(nz)
-                v = jnp.where(has, u[j], 1)
-                g = jnp.where((iota_nb != k) & has, P[:, j], 0)
-                P = _mulsub(v, P, g[:, None], u[None, :], p, small,
-                            rounds).astype(X.dtype)
-                pivl = pivl.at[k].set(
-                    jnp.where(has, j, -1).astype(jnp.int32))
-                return P, pivl
-
-            P, pivl = jax.lax.fori_loop(
-                0, nb, step, (P, jnp.full((nb,), -1, jnp.int32)))
+        P, pivl = jax.lax.fori_loop(
+            0, nb, step, (P, jnp.full((nb,), -1, jnp.int32)))
         # normalize panel pivot rows (one batched Fermat inversion)
         pv = P[iota_nb, jnp.where(pivl >= 0, pivl, M - 1)]
         inv = dnorm64(modinv(jnp.where(pivl >= 0, pv, 1), p), p)
@@ -473,32 +113,13 @@ def rref_rows_device(Xd, p: int, nb: int = 64, sync: bool = True):
     sync=False returns pivcol as a DEVICE array so callers can overlap
     more work before paying the device->host round trip."""
     from .modp import device_field
-    from .sweep_pallas import PALLAS_MAX_PRIME
     F = device_field(p)
     B = Xd.shape[0]
     nb = min(nb, B)
     while B % nb:
         nb //= 2
-    pall = (F.ndigits == 2 and p <= PALLAS_MAX_PRIME
-            and Xd.shape[1] % _SWEEP_TW == 0
-            and _sweep_pallas_available(Xd.dtype))
-    # the augmented-tile kernel needs >= 2 tiles to have anything to
-    # compose; at M == TW the v1 kernel is equivalent anyway
-    pall2 = (pall and Xd.shape[1] >= 2 * _SWEEP_TW
-             and _sweep2_available())
-    if pall and nb % 64:
-        nb = 64
-        while B % nb:
-            nb //= 2
-        if nb < 64:
-            pall = False
-            pall2 = False
-    # one-round Barrett is exact inside the sweep for p >= 1024:
-    # |v*tl - g*ut| <= 2(p/2)^2 keeps the round-1 residue within the
-    # two-correction range (0.51p + 254 <= 1.5p)
     Xd, pivcol = _rref_rows(Xd, jnp.int64(p), jnp.asarray(F.weights),
-                            F.ndigits, nb, p <= (1 << 23), pall,
-                            p >= 1024, pall2)
+                            F.ndigits, nb, p <= (1 << 23))
     return Xd, (np.asarray(pivcol) if sync else pivcol)
 
 
@@ -518,6 +139,7 @@ def _basis_apply(X, R, jpos, p, weights, d: int):
 
 _CHUNK = 4096        # fixed basis-chunk height: ONE compiled program per
                      # role regardless of round count or basis size
+                     # (carried over untuned; see ROADMAP A3)
 
 
 @functools.partial(jax.jit, static_argnames=("d",), donate_argnums=(0,))
@@ -571,16 +193,17 @@ class CompactBasis:
     traced offset), so the whole finisher compiles one apply and one
     back-reduce variant regardless of round count — the per-round
     shape-specialized programs of the growing-buffer design dominated
-    cold start through the remote-compile latency.
+    cold start through compile time.  Storage is int16 or int32 as
+    `modp.storage_dtype(p)` decides.
     """
 
-    def __init__(self, M: int, p: int, cap: int, dtype=jnp.int16):
-        from .modp import device_field
+    def __init__(self, M: int, p: int, cap: int):
+        from .modp import device_field, storage_dtype
         self.M = M
         self.p = p
         self.F = device_field(p)
         self.cap = -(-max(cap, 1) // _CHUNK) * _CHUNK
-        self.Rbuf, self.jbuf = _alloc_basis(self.cap, M, dtype)
+        self.Rbuf, self.jbuf = _alloc_basis(self.cap, M, storage_dtype(p))
         self.jpos_host = []       # host jpos of each appended chunk
         self.count = 0
         self.nrows = 0

@@ -1,5 +1,5 @@
 // Native host kernels for spasm_tpu: the irregular sparse paths that stay
-// off the TPU (symbolic graph walks + scalar Gilbert-Peierls elimination).
+// off the device (symbolic graph walks + scalar Gilbert-Peierls elimination).
 //
 // Role-equivalent to the reference's C/OpenMP hot loops
 // (/root/reference/src/spasm_reach.c, spasm_triangular.c:109-147,
@@ -255,7 +255,7 @@ void spasm_solve_fetch(i64 *lens, i32 *cols, i32 *vals) {
 // work_budget: total BFS expansions allowed before giving up (<=0 =
 // unlimited).  Greedy pivots are valid incrementally, so an early stop
 // keeps everything found so far; on expander-like matrices the full
-// search is O(n*nnz) for marginal gain (the dense finisher on TPU is
+// search is O(n*nnz) for marginal gain (the device dense finisher is
 // cheaper than the symbolic search on the host).
 i64 spasm_cycle_free_pivots(const i64 *Ap, const i32 *Aj, i32 n, i32 m,
                             i64 *pinv, i64 *qinv, i64 work_budget) {

@@ -5,17 +5,16 @@
 
 Inside the context every device-resident stage of the engine places its
 arrays with explicit NamedShardings and XLA's SPMD partitioner inserts
-the collectives (scaling-book recipe — mesh + shardings, collectives on
-ICI):
+the collectives (mesh + shardings; XLA places the collectives):
 
   * chunked block elimination (UEliminator): the dense row block X is
     sharded P('rows', None); chunk bases V are replicated -> pure data
-    parallelism, zero per-chunk communication (the TPU analog of the
+    parallelism, zero per-chunk communication (the device analog of the
     reference's `omp parallel for` over Schur rows, spasm_schur.c:86).
   * blocked dense RREF/PLUQ (dense/elim._eliminate): S is sharded
     P(None, 'cols') — classic right-looking column-block Gaussian
     elimination: the panel sweep runs where the panel lives and the
-    composed trailing updates are local MXU matmuls on each column
+    composed trailing updates are local matmuls on each column
     shard after an all-gather of the (nb, nb) pivot minor data
     (inserted by SPMD).
 

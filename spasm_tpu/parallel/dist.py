@@ -7,8 +7,7 @@ of the reference's `omp parallel for` over Schur rows,
 /root/reference/src/spasm_schur.c:86), column-sharded dense elimination
 (TP), and the device finisher's accumulator width (the SP analog of
 SURVEY.md §5.7) — with XLA's SPMD partitioner inserting the collectives
-over ICI (scaling-book recipe: pick a mesh, annotate shardings, let the
-compiler place collectives).
+(pick a mesh, annotate shardings, let the compiler place collectives).
 
 This module only builds meshes; the earlier standalone demo entry
 points (one-panel round step, per-chunk block eliminate) duplicated the
@@ -26,13 +25,17 @@ def make_mesh(n_devices: int = None, devices=None,
               process_of=None) -> Mesh:
     """A ('rows', 'cols') mesh over the available devices.
 
-    Two-level when the devices span multiple PROCESSES (multi-host
-    deployment): 'rows' runs across the process (DCN) axis and 'cols'
-    stays within a process, so the width-sharded collectives of the
+    One process (one host): the cards of an H100 host are linked all
+    to all by NVLink, so no device pairing is faster than another and
+    the mesh follows the algorithm alone: the rows-heavy factorization
+    below (2 x 2 on four devices).
+
+    Several processes (multi-host): 'rows' runs across processes and
+    'cols' stays within one, so the width-sharded collectives of the
     dense stages (all-gathers of pivot-minor data, psums over column
-    shards) ride ICI while the row-partitioned data parallelism — which
-    only communicates at block boundaries — crosses DCN.  Single
-    process falls back to the rows-heavy single-level factorization.
+    shards) stay on the host's own links, while the row-partitioned
+    data parallelism — which only communicates at block boundaries —
+    crosses the slower network between hosts.
 
     `process_of` (device -> process id) is injectable for tests; the
     default is `device.process_index`.

@@ -3,7 +3,7 @@
 Re-implements the three pivot-search passes of the reference
 (/root/reference/src/spasm_pivots.c) with host-side vectorized / graph
 code — these passes are O(nnz) symbolic work and never the FLOP
-bottleneck; the arithmetic they unlock runs on the TPU:
+bottleneck; the arithmetic they unlock runs on the device:
 
   1. Faugere-Lachartre: for every column, the sparsest row whose leftmost
      entry lies on it (vectorized lexsort selection).
@@ -93,7 +93,7 @@ def find_cycle_free_pivots(A: CSR, pinv: np.ndarray,
 
     work_budget > 0 caps the total BFS expansion count: on expander-like
     matrices the full search costs O(n*nnz) host time for marginal gain
-    (the TPU dense finisher absorbs the leftover rows far cheaper), while
+    (the device dense finisher absorbs the leftover rows far cheaper), while
     FL-friendly instances complete well inside the budget.  Early stop is
     sound — greedy pivots are valid incrementally.
     """
@@ -217,7 +217,7 @@ def topo_order_pivots(A: CSR, pinv: np.ndarray, qinv: np.ndarray,
 
 
 def row_levels(A: CSR, rows: np.ndarray, pinv: np.ndarray) -> np.ndarray:
-    """Topological levels of pivotal rows (TPU-build extension).
+    """Topological levels of pivotal rows (extension over the reference).
 
     `rows` must be in a valid topological order (a row's support only
     contains pivot columns of rows at the same index or later).  Rows in

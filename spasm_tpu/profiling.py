@@ -2,7 +2,7 @@
 
 The reference's observability is wall-clock timers + phase-tagged stderr
 logs (spasm_wtime, spasm_util.c:27-32; log sites like
-spasm_echelonize.c:484,533).  The TPU build keeps those logs (the
+spasm_echelonize.c:484,533).  This package keeps those logs (the
 `spasm_tpu` logger) and adds the structured layer the reference lacks
 (SURVEY.md §5.1): every engine phase is wrapped in a
 `jax.profiler.TraceAnnotation` so device traces captured with
@@ -80,3 +80,19 @@ def maybe_trace(trace_dir: Optional[str]) -> Iterator[None]:
         yield
     finally:
         stop_trace()
+
+
+def gpu_name_power() -> str:
+    """`name, power.limit` of the first NVIDIA card as nvidia-smi reports
+    them ("" without one).  A child process reads them, so the caller's
+    JAX backend stays untouched; every device number is reported beside
+    them, since a card set below its power limit runs slower."""
+    import subprocess
+    try:
+        r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return ""
+    lines = r.stdout.strip().splitlines()
+    return lines[0].strip() if r.returncode == 0 and lines else ""

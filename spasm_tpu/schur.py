@@ -1,7 +1,7 @@
 """Schur complement formation (sparse and dense) and density estimation.
 
 Functional equivalents of /root/reference/src/spasm_schur.c, re-architected
-for the TPU: rows are processed in dense *blocks* eliminated against U by
+for an accelerator: rows are processed in dense *blocks* eliminated against U by
 the chunked device eliminator (spasm_tpu.dense.block.UEliminator) instead
 of per-row DFS triangular solves under OpenMP.  Row commit order is the
 input order — deterministic by construction, unlike the reference's

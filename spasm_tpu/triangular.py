@@ -11,8 +11,8 @@ The Gilbert-Peierls machinery of the reference
   * dense forward/back solves used by the LU system solver.
 
 These remain on the host: they are irregular, data-dependent graph walks.
-The TPU path (spasm_tpu.dense) batches whole row *blocks* instead and
-eliminates them level-by-level with MXU matmuls; these per-row versions are
+The device path (spasm_tpu.dense) batches whole row *blocks* instead and
+eliminates them level-by-level with matmuls; these per-row versions are
 the exact scalar reference used by the engine for very sparse residues and
 by the test-suite property checks.
 """

@@ -1,4 +1,4 @@
-"""Mid-engine checkpoint/resume (TPU-build extension, SURVEY.md §5.4).
+"""Mid-engine checkpoint/resume (extension over the reference, SURVEY.md §5.4).
 
 The reference has no mid-computation persistence; the round-structured
 engine state (U, qinv, L-triplets, S, p_in) is snapshotted between rounds
